@@ -16,7 +16,10 @@ Phases, in order; any failure exits non-zero:
      Bd=16384), and its AdaGrad tail entry at the first; the four
      level-histogram kernels at the tree bench's width (1M HIGGS-shaped
      rows, 28 features, 64 bins) at level 0 and at the deepest level of
-     their trainer (RF: 16 trees, M=256; GBT: M=64);
+     their trainer (RF: 16 trees, M=256; GBT: M=64); B5 and B6 with
+     int32 codes (the kernels line) and the staged uint8 codes
+     (``ms_uint8``), B6's bucketing (``node_bucket``) timed alone
+     (``sort_ms``);
   4. the port trainers on the card against the same trainers on the CPU
      (the plain versions): FFM from one initial state on a small input;
      one sharded (1x1 mesh) FFM step, in a one-rank NCCL group on the card
@@ -29,7 +32,8 @@ Phases, in order; any failure exits non-zero:
      ``train_xgboost_classifier`` (8 rounds, depth 6) on a StagedMatrix
      of 1M x 28 rows, then predict on 100k held-out rows; the public
      histogram functions ``level_histogram`` / ``level_histogram_sorted``,
-     which no trainer calls, on one level of the fitted forest; and, in a
+     which no trainer calls, on one level of the fitted forest (staged
+     uint8 codes; 3 launches of B5, 1 of B6, 1 of node_bucket); and, in a
      one-rank NCCL group (``init_distributed``), ``train_ffm ... -mesh
      dp=1,tp=1`` on the same 16 batches (B2 and the tail once a step, B1
      never; held-out logloss and AUC within 1e-3 of the single-device
@@ -41,8 +45,9 @@ Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``chiprun_out/chip_smoke.json``. Without a CUDA card, or without the port
 beside it, it exits non-zero and prints no result. ``--profile`` adds, after
 the FFM main path, the host stages of four more steps and a torch.profiler
-table of two, and a torch.profiler table of one RF fit and one GBT fit, to
-the output and the report.
+table of two, a torch.profiler table of one RF fit and one GBT fit, and
+tables of B5 and B6 calls at phase 3's shapes, to the output and the
+report.
 """
 from __future__ import annotations
 
@@ -196,15 +201,18 @@ FFM_WRAPPERS = {"parts_scatter_adagrad": parts_scatter_adagrad,
                 "parts_adagrad_tail": parts_adagrad_tail}
 
 
+# node_bucket: B6's bucketing, launched by level_histogram_sorted
+ALL_WRAPPERS = {**HIST_WRAPPERS, "node_bucket": H.node_bucket,
+                **FFM_WRAPPERS}
+
+
 def _zero_counts() -> None:
-    for fn in list(FFM_WRAPPERS.values()) + list(HIST_WRAPPERS.values()):
+    for fn in ALL_WRAPPERS.values():
         fn.launches = 0
 
 
 def _counts() -> dict:
-    out = {name: fn.launches for name, fn in HIST_WRAPPERS.items()}
-    out.update({name: fn.launches for name, fn in FFM_WRAPPERS.items()})
-    return out
+    return {name: fn.launches for name, fn in ALL_WRAPPERS.items()}
 
 
 @contextlib.contextmanager
@@ -507,7 +515,8 @@ def _time_kernel(fn, plain, lib, nbytes, nops) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=nops)
 
 
-def phase_tree_kernels_vs_plain(bins: torch.Tensor, y: np.ndarray) -> dict:
+def phase_tree_kernels_vs_plain(bins: torch.Tensor, y: np.ndarray,
+                                profile: bool = False) -> dict:
     """Every histogram kernel at the tree main paths' shapes: 1M rows,
     28 features (32 padded), 64 bins; B3 with the forest's 16 trees of
     class-count channels (S=2), B4 with the booster's (g, h, 1) channels
@@ -578,7 +587,9 @@ def phase_tree_kernels_vs_plain(bins: torch.Tensor, y: np.ndarray) -> dict:
             torch.cuda.empty_cache()
         out[name]["max_abs_err"] = max(errs)
     # B5 / B6: one tree's integer channels (exact sums: bit-equal to the
-    # plain version), then 11 float channels against a float64 sum
+    # plain version), then 11 float channels against a float64 sum; each
+    # with int32 codes (the times of the kernels line) and the
+    # staged uint8 codes as they are
     for name in ("hist_flat", "hist_sorted"):
         wrapper = HIST_WRAPPERS[name]
         ref = (H.level_histogram_reference if name == "hist_flat"
@@ -587,26 +598,39 @@ def phase_tree_kernels_vs_plain(bins: torch.Tensor, y: np.ndarray) -> dict:
         for M in (1, M_RF):
             loc = level_loc(1, M)[0]
             ws = ws_rf[0]
-            got = wrapper(bins32, loc, ws, M, TREE_BINS)
             want = ref(bins32, loc, ws, M, TREE_BINS)
-            torch.cuda.synchronize()
-            _check(torch.equal(got, want),
-                   f"{name} differs from its plain version at M={M}")
-            errs.append(float((got - want).abs().max()))
             ws11 = torch.from_numpy(rng.normal(0, 1, (n, 11)).astype(
                 np.float32)).to(DEV)
-            e, r = _within_tol(wrapper(bins32, loc, ws11, M, TREE_BINS),
-                               lambda w, dt: ref(bins32, loc, w, M,
-                                                 TREE_BINS, dt), ws11)
-            errs.append(e)
+            ratios = []
+            for codes in (bins32, bins):
+                got = wrapper(codes, loc, ws, M, TREE_BINS)
+                torch.cuda.synchronize()
+                _check(torch.equal(got, want),
+                       f"{name} differs from its plain version at M={M} "
+                       f"({codes.dtype} codes)")
+                errs.append(float((got - want).abs().max()))
+                e, r = _within_tol(wrapper(codes, loc, ws11, M, TREE_BINS),
+                                   lambda w, dt: ref(bins32, loc, w, M,
+                                                     TREE_BINS, dt), ws11)
+                errs.append(e)
+                ratios.append(r)
             active = int(((loc >= 0) & (loc < M)).sum())
-            t = _time_kernel(                   # hist_sorted: sort included
+            t = _time_kernel(                   # hist_sorted: bucketing in
                 lambda: wrapper(bins32, loc, ws, M, TREE_BINS),
                 lambda: ref(bins32, loc, ws, M, TREE_BINS),
                 _library_rows(bins32, loc, ws, M),
                 _hist_bytes(n, d, loc, ws, M), active * d * 2)
-            _say(f"{name}_M{M}", max_abs_err=max(errs[-2:]),
-                 s11_err_over_eps_sum_abs=r, **t)
+            t["ms_uint8"] = _time_ms(lambda: wrapper(bins, loc, ws, M,
+                                                     TREE_BINS))
+            if name == "hist_sorted":
+                t["sort_ms"] = _time_ms(lambda: H.node_bucket(loc, M))
+            _say(f"{name}_M{M}", max_abs_err=max(errs[-4:]),
+                 s11_err_over_eps_sum_abs=max(ratios), **t)
+            if profile:
+                for tag, codes in (("int32", bins32), ("uint8", bins)):
+                    _profile_call(f"{name}_M{M}_{tag}",
+                                  lambda: wrapper(codes, loc, ws, M,
+                                                  TREE_BINS))
             out[name] = t                       # the last: M = 256
             torch.cuda.empty_cache()
         out[name]["max_abs_err"] = max(errs)
@@ -1061,17 +1085,17 @@ def phase_hist_api_path(forest, bins, y) -> dict:
     channels (two slabs of 8)."""
     M = 2 ** RF_DEPTH
     loc = _deepest_level(forest.tree, 0, bins, RF_DEPTH)
-    bins32 = bins.to(torch.int32)
     ws = torch.nn.functional.one_hot(torch.from_numpy(y).to(DEV).long(),
                                      2).float()
     ws11 = torch.cat([ws] * 5 + [ws[:, :1]], dim=1).contiguous()
     _zero_counts()
-    h_sorted = H.level_histogram_sorted(bins32, loc, ws, M, TREE_BINS)
-    h_100 = H.level_histogram_sorted(bins32, loc, ws, M, 100)
-    h_11 = H.level_histogram(bins32, loc, ws11, M, TREE_BINS)
+    h_sorted = H.level_histogram_sorted(bins, loc, ws, M, TREE_BINS)
+    h_100 = H.level_histogram_sorted(bins, loc, ws, M, 100)
+    h_11 = H.level_histogram(bins, loc, ws11, M, TREE_BINS)
     torch.cuda.synchronize()
     counts = _counts()
-    _check(counts["hist_sorted"] == 1 and counts["hist_flat"] == 3,
+    _check(counts["hist_sorted"] == 1 and counts["hist_flat"] == 3
+           and counts["node_bucket"] == 1,
            f"histogram API path launched {counts}")
     dense = H.level_histogram_dense(H.transpose_bins(bins), loc, ws, M,
                                     TREE_BINS, fast=True)[:, :TREE_D]
@@ -1081,9 +1105,20 @@ def phase_hist_api_path(forest, bins, y) -> dict:
             and float(h_100[:, :, TREE_BINS:].abs().sum()) == 0.0)
     _check(same, "histogram API results differ from the dense kernel's")
     _say("hist_api_path", active_rows=int((loc >= 0).sum()),
-         launches_sorted=counts["hist_sorted"],
-         launches_flat=counts["hist_flat"], equal_to_dense=same)
+         codes=str(bins.dtype), launches_sorted=counts["hist_sorted"],
+         launches_flat=counts["hist_flat"],
+         launches_bucket=counts["node_bucket"], equal_to_dense=same)
     return counts
+
+
+def _profile_call(tag: str, fn, k: int = 5) -> None:
+    """torch.profiler over ``k`` calls of ``fn``: device ms a call by kernel
+    (the wrapper's launches, copies and memsets apart)."""
+    rows, dev_ms = _device_table(lambda: [fn() for _ in range(k)], per=k)
+    REPORT[f"profile_{tag}"] = rows[:20]
+    print(f"[profile] {tag}: device {dev_ms:.4f} ms/call", flush=True)
+    for key, c, ms in rows[:10]:
+        print(f"[profile] {ms:9.4f} ms/call  x{c:<4d} {key[:90]}", flush=True)
 
 
 def _profile_steps(t, ds) -> None:
@@ -1134,7 +1169,7 @@ def main() -> None:
     _say("tree_data", rows=TREE_N, holdout_rows=TREE_HOLDOUT,
          seconds=round(time.perf_counter() - t0, 3),
          positive_rate=float(y.mean()))
-    kt = phase_tree_kernels_vs_plain(Xs.bins, y)
+    kt = phase_tree_kernels_vs_plain(Xs.bins, y, profile)
     ka = phase_accum_vs_plain()
     phase_small_reference()
     phase_mesh_step_card_vs_cpu()

@@ -18,10 +18,20 @@ count, raised only where it launches its kernel.
                          ``hist_dense_f32`` otherwise) — what the builder
                          calls; takes a leading tree axis on ``loc``/``ws``
                          so one launch covers every tree of a level
-  level_histogram        (B5 ``hist_flat``) — channels in slabs of 8
-  level_histogram_sorted (B6 ``hist_sorted``) — rows sorted by node; bin
+  level_histogram        (B5 ``hist_flat``) — channels in slabs of 8; no
+                         sort: each block owns whole nodes and reads
+                         only its rows' codes
+  level_histogram_sorted (B6 ``hist_sorted``) — rows bucketed by node with
+                         ``node_bucket`` (a counting sort on the card),
+                         each block one slice of one node's rows; bin
                          counts that do not divide 128 go to
                          ``level_histogram``, as in the reference
+  node_bucket            the counting sort, with a count of its own
+
+B5 and B6 read uint8 or int32 bin codes as given (no int32 copy). Their
+launches are planned here (``_flat_plan``, ``_sorted_plan``: node tile,
+feature group, rows a block, grid, shared memory), so the plans are tested
+on the CPU; the kernels take the plan's integers.
 
 ``fast`` means integer-valued channels (class indicator x bootstrap count):
 B3 rounds each channel to the nearest integer (half to even) and accumulates
@@ -35,17 +45,34 @@ functions keep the argument for its signature alone.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 __all__ = ["level_histogram_dense", "level_histogram", "level_histogram_sorted",
-           "hist_dense_int", "hist_dense_f32",
+           "hist_dense_int", "hist_dense_f32", "node_bucket",
            "level_histogram_dense_reference", "level_histogram_reference",
-           "level_histogram_sorted_reference", "transpose_bins"]
+           "level_histogram_sorted_reference", "node_bucket_reference",
+           "transpose_bins"]
 
 _SCH = 8            # channel slab of level_histogram (the reference's)
 _TW = 128           # node-window width in columns of level_histogram_sorted
 _MAX_CELLS = 227 * 1024 // 4   # one node x feature tile, n_bins * S, on the card
+
+# Launch geometry of the flat and sorted kernels and node_bucket; _WARPS,
+# _FLAT_LIST, _SORTED_BATCH, _LOC_AHEAD and _BUCKET_ROWS equal
+# kernels/tree_hist.cu's kThreads/32, kFlatList, kSortedBatch, kLocAhead
+# and kThreads*kBucketItems.
+_WARPS = 16           # warps a block (512 threads)
+_FLAT_LIST = 64       # rows of a warp's owned-row list (B5)
+_SORTED_BATCH = 32    # rows a warp stages at a time (B6)
+_LOC_AHEAD = 16       # node ids a lane loads ahead (B5): a warp step is 512
+_SMEM_TARGET = 110 * 1024   # a block's shared memory: two blocks an SM
+_SMEM_MAX = 227 * 1024      # the most one block may have (H100)
+_MIN_SLICE = 512      # fewest rows a slice of a node (B6)
+_BUCKET_ROWS = 512 * 8      # rows a block of node_bucket
+_BUCKET_SMEM = 48 * 1024    # node_bucket counts in shared memory up to this
+_GRID_Y = 65535
 
 
 def transpose_bins(bins: torch.Tensor) -> torch.Tensor:
@@ -111,9 +138,27 @@ def level_histogram_reference(bins: torch.Tensor, loc: torch.Tensor,
 
 def _sort_rows(loc: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """Row order by node id, rows outside [0, n_nodes) last."""
-    key = torch.where((loc >= 0) & (loc < n_nodes), loc,
-                      torch.full_like(loc, n_nodes))
-    return torch.argsort(key)
+    return torch.argsort(_node_keys(loc, n_nodes))
+
+
+def _node_keys(loc: torch.Tensor, n_nodes: int) -> torch.Tensor:
+    return torch.where((loc >= 0) & (loc < n_nodes), loc,
+                       torch.full_like(loc, n_nodes))
+
+
+def node_bucket_reference(loc: torch.Tensor, n_nodes: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of node_bucket: (order, offsets), int32. The rows of
+    node k are ``order[offsets[k]:offsets[k+1]]`` (here in row order; the
+    card's order inside a node is unset), rows outside [0, n_nodes) last
+    at ``order[offsets[n_nodes]:]``; ``offsets`` [n_nodes + 2] is the
+    cumulative count of each key, 0 first."""
+    key = _node_keys(loc, n_nodes).to(torch.int64)
+    counts = torch.bincount(key, minlength=n_nodes + 1)
+    offsets = torch.zeros(n_nodes + 2, dtype=torch.int32, device=loc.device)
+    offsets[1:] = counts.cumsum(0).to(torch.int32)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    return order, offsets
 
 
 def level_histogram_sorted_reference(bins: torch.Tensor, loc: torch.Tensor,
@@ -144,9 +189,11 @@ def _kernel(name: str):
             fn.argtypes = [vp, vp, vp, vp, ci, ci, ctypes.c_longlong, ci, ci,
                            ci, ci, vp]
         elif name == "hist_flat":
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-        else:
-            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+            fn.argtypes = [vp, ci, vp, vp, vp] + [ci] * 13 + [vp]
+        elif name == "hist_sorted":
+            fn.argtypes = [vp, vp, vp, vp, ci, vp, vp] + [ci] * 9 + [vp]
+        else:                                   # node_bucket
+            fn.argtypes = [vp, ci, ci, vp, vp, vp, ci, ci, vp]
         fn.restype = ci
         _KERNELS[name] = fn
     return fn
@@ -160,6 +207,99 @@ def _run(name: str, *args) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_SMS: dict = {}
+
+
+def _sms(dev: torch.device) -> int:
+    """Streaming multiprocessors of the card ``dev``."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(key).multi_processor_count
+    return _SMS[key]
+
+
+# --- launch plans of B5 and B6 (plain Python, tested on the CPU) ------------
+
+class _Plan(NamedTuple):
+    nodes: int              # whole nodes a tile (B5); 1 (B6: one node)
+    features: int           # features a group
+    rows: int               # rows a block: B5 a chunk, B6 a node's slice
+    grid: Tuple[int, int]   # (gridDim.x, gridDim.y)
+    smem: int               # dynamic shared memory a block, bytes
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tile_room(who: str, cell: int, staged: int) -> int:
+    """Shared bytes left for the histogram tile beside ``staged`` bytes of
+    staged rows: the two-blocks-an-SM target, or up to the block maximum
+    where one node x one feature (``cell`` bytes) needs it."""
+    room = _SMEM_TARGET - staged
+    if cell > room:
+        room = _SMEM_MAX - staged
+    if cell > room:
+        raise ValueError(f"{who}: one node x one feature of the histogram "
+                         f"({cell} bytes) does not fit a block's shared "
+                         f"memory beside its staged rows")
+    return room
+
+
+def _check_rows_fit(who: str, n: int) -> None:
+    if n >= 2 ** 31:
+        raise ValueError(f"{who}: {n} rows exceed the kernel's int32 row "
+                         "ids")
+
+
+def _flat_plan(n: int, d: int, M: int, B: int, S: int, sms: int) -> _Plan:
+    """B5: tiles of whole nodes x feature groups, sized so that the tile and
+    the warps' row lists fill about 110 KB (two blocks an SM); rows in
+    chunks such that about two blocks an SM run over all tiles (a shallow
+    level: one tile, 2 x sms blocks, each flushing once)."""
+    _check_rows_fit("level_histogram", n)
+    Sk = min(S, _SCH)
+    staged = 4 * _WARPS * _FLAT_LIST * (2 + Sk)
+    cell = 4 * B * Sk                          # one node x one feature
+    room = _tile_room("level_histogram", cell, staged)
+    if cell * d <= room:
+        NT, FG = min(M, room // (cell * d)), d
+    else:
+        NT, FG = 1, room // cell
+    n_nt, n_fg = _cdiv(M, NT), _cdiv(d, FG)
+    NT, FG = _cdiv(M, n_nt), _cdiv(d, n_fg)    # even tiles
+    tiles = n_nt * n_fg
+    step = 32 * _LOC_AHEAD                     # rows of one warp step
+    chunks = max(1, min(2 * sms // tiles, _cdiv(n, step), _GRID_Y))
+    rows = max(1, _cdiv(n, chunks))
+    return _Plan(NT, FG, rows, (tiles, max(1, _cdiv(n, rows))),
+                 4 * NT * FG * B * Sk + staged)
+
+
+def _sorted_plan(n: int, d: int, M: int, B: int, S: int, sms: int) -> _Plan:
+    """B6: blocks of (slice of one node's rows, feature group); a group is
+    the node's features that fit about 110 KB beside the staged rows; the
+    slice is long enough that the blocks of a one-node level number about
+    two an SM. gridDim.x bounds the slices, sum_k ceil(rows_k / L) <=
+    ceil(n / L) + M; the blocks past the real count return at once."""
+    _check_rows_fit("level_histogram_sorted", n)
+    Sk = min(S, _SCH)
+    staged = 4 * _WARPS * _SORTED_BATCH * (1 + Sk)
+    cell = 4 * B * Sk
+    room = _tile_room("level_histogram_sorted", cell, staged)
+    FG = min(d, room // cell)
+    n_fg = _cdiv(d, FG)
+    FG = _cdiv(d, n_fg)
+    L = max(_MIN_SLICE, _cdiv(n * n_fg, 2 * sms))
+    return _Plan(1, FG, L, (_cdiv(n, L) + M, n_fg),
+                 4 * FG * B * Sk + staged)
+
+
+def _bucket_plan(n: int, M: int) -> Tuple[int, int]:
+    """node_bucket: (blocks, counts in shared memory or not)."""
+    return _cdiv(n, _BUCKET_ROWS), int(4 * (M + 1) <= _BUCKET_SMEM)
 
 
 # --- operand checks ----------------------------------------------------------
@@ -287,25 +427,25 @@ def level_histogram(bins: torch.Tensor, loc: torch.Tensor, ws: torch.Tensor,
                     fast: bool = False) -> torch.Tensor:
     """Histogram one level: bins uint8/int32 [n, d], loc int32 [n] (-1 =
     inactive), ws f32 [n, S] -> f32 [n_nodes, d, n_bins, S]. Channels go
-    through the kernel in slabs of 8, one launch each. ``fast`` is kept for
-    the reference's signature and changes nothing: the sum is float32."""
+    through the kernel in slabs of 8, one launch each, into one output; the
+    codes are read in the dtype given. ``fast`` is kept for the
+    reference's signature and changes nothing: the sum is float32."""
     dev = _check_rows("level_histogram", bins, loc, ws, n_nodes, n_bins)
     if dev.type == "cpu":
         return level_histogram_reference(bins, loc, ws, n_nodes, n_bins)
     n, d = bins.shape
     S = ws.shape[1]
-    b32 = bins.to(torch.int32).contiguous()
-    parts = []
-    for s0 in range(0, S, _SCH):
-        slab = ws[:, s0:s0 + _SCH].contiguous()
-        Sk = slab.shape[1]
-        out = torch.empty((n_nodes, d, n_bins, Sk), dtype=torch.float32,
-                          device=dev)
-        _run("hist_flat", b32.data_ptr(), loc.data_ptr(), slab.data_ptr(),
-             out.data_ptr(), n, d, n_nodes, n_bins, Sk, _stream(out))
+    plan = _flat_plan(n, d, n_nodes, n_bins, S, _sms(dev))
+    out = torch.empty((n_nodes, d, n_bins, S), dtype=torch.float32,
+                      device=dev)                  # zeroed by the first slab
+    stream = _stream(out)
+    for c0 in range(0, S, _SCH):
+        _run("hist_flat", bins.data_ptr(), bins.element_size(),
+             loc.data_ptr(), ws.data_ptr(), out.data_ptr(), n, d, n_nodes,
+             n_bins, S, c0, min(_SCH, S - c0), plan.nodes, plan.features,
+             plan.rows, *plan.grid, plan.smem, stream)
         level_histogram.launches += 1
-        parts.append(out)
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    return out
 
 
 level_histogram.launches = 0
@@ -313,15 +453,58 @@ level_histogram.launches = 0
 
 # --- B6: node-sorted ---------------------------------------------------------
 
+def node_bucket(loc: torch.Tensor, n_nodes: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows bucketed by node: loc int32 [n] -> (order int32 [n], offsets
+    int32 [n_nodes + 2]); node k's rows are ``order[offsets[k]:offsets[k +
+    1]]``, rows outside [0, n_nodes) last. On the card a counting sort (a
+    per-block count of every node, one scan, a scatter); the order inside
+    a node is unset there. CPU tensors take node_bucket_reference."""
+    if loc.dtype != torch.int32 or loc.dim() != 1 \
+            or not loc.is_contiguous():
+        raise ValueError("node_bucket: loc must be contiguous int32 [n], got "
+                         f"{loc.dtype} {tuple(loc.shape)}")
+    if n_nodes < 1:
+        raise ValueError(f"node_bucket: need n_nodes >= 1, got {n_nodes}")
+    if loc.device.type == "cpu":
+        return node_bucket_reference(loc, n_nodes)
+    if loc.device.type != "cuda":
+        raise ValueError(f"node_bucket: unsupported device {loc.device}")
+    n = loc.shape[0]
+    buf = _bucket(loc, n_nodes)[0]
+    return buf[:n], buf[n:n + n_nodes + 2]
+
+
+def _bucket(loc: torch.Tensor, n_nodes: int):
+    """node_bucket on the card into one new int32 buffer [n + 3*n_nodes +
+    4]: order [n], offsets [n_nodes + 2], then 2*(n_nodes + 1) ints of
+    scratch, free again once the launch is queued. Returns the buffer and
+    the three addresses."""
+    n = loc.shape[0]
+    _check_rows_fit("node_bucket", n)
+    buf = torch.empty(n + 3 * n_nodes + 4, dtype=torch.int32,
+                      device=loc.device)
+    order = buf.data_ptr()
+    offsets = order + 4 * n
+    scratch = offsets + 4 * (n_nodes + 2)
+    _run("node_bucket", loc.data_ptr(), n, n_nodes, order, offsets, scratch,
+         *_bucket_plan(n, n_nodes), _stream(loc))
+    node_bucket.launches += 1
+    return buf, order, offsets, scratch
+
+
+node_bucket.launches = 0
+
+
 def level_histogram_sorted(bins: torch.Tensor, loc: torch.Tensor,
                            ws: torch.Tensor, n_nodes: int, n_bins: int,
                            fast: bool = False) -> torch.Tensor:
-    """The same contract as level_histogram over rows sorted by node
-    (``torch.argsort`` outside the kernel, as in the reference). Each block
-    histograms the node window its chunk of sorted rows spans in shared
-    memory. Bin counts that do not divide 128 go to level_histogram, as in
-    the reference. ``fast`` is kept for the reference's signature and
-    changes nothing."""
+    """The same contract as level_histogram over rows bucketed by node
+    (``node_bucket``, counted apart). Each block takes one slice of one
+    node's rows and histograms them in shared memory; every channel goes
+    in one call. Bin counts that do not divide 128 go to level_histogram,
+    as in the reference. ``fast`` is kept for the reference's signature
+    and changes nothing."""
     dev = _check_rows("level_histogram_sorted", bins, loc, ws, n_nodes,
                       n_bins)
     if _TW % n_bins:
@@ -331,13 +514,15 @@ def level_histogram_sorted(bins: torch.Tensor, loc: torch.Tensor,
                                                 n_bins)
     n, d = bins.shape
     S = ws.shape[1]
-    order = _sort_rows(loc, n_nodes)              # int64 [n], contiguous
-    b32 = bins.to(torch.int32).contiguous()
+    plan = _sorted_plan(n, d, n_nodes, n_bins, S, _sms(dev))
+    # the bucket scratch holds the [n_nodes + 1] slice starts
+    buf, order, offsets, slice_start = _bucket(loc, n_nodes)
     out = torch.empty((n_nodes, d, n_bins, S), dtype=torch.float32,
-                      device=dev)
-    _run("hist_sorted", order.data_ptr(), b32.data_ptr(),
-         loc.data_ptr(), ws.data_ptr(), out.data_ptr(), n, d, n_nodes,
-         n_bins, S, _stream(out))
+                      device=dev)                  # zeroed by hist_sorted
+    _run("hist_sorted", order, offsets, slice_start, bins.data_ptr(),
+         bins.element_size(), ws.data_ptr(), out.data_ptr(), d, n_nodes,
+         n_bins, S, plan.features, plan.rows, *plan.grid, plan.smem,
+         _stream(out))
     level_histogram_sorted.launches += 1
     return out
 

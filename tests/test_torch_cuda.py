@@ -249,6 +249,103 @@ def test_sorted_falls_back_to_flat_for_odd_bins():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,skew", [(1, False), (256, False), (3000, False),
+                                    (64, True), (20000, False)])
+def test_node_bucket_matches_plain_version(M, skew):
+    """Offsets equal exactly; each node's bucket holds the same rows (the
+    order inside a bucket is unset on the card). M=20000 counts in global
+    memory, the others in shared memory."""
+    from hivemall_tpu_torch.ops import hist as H
+    dev = _card()
+    n = 300_000
+    rng = np.random.default_rng(M)
+    loc = rng.integers(-3, M + 3, n).astype(np.int32)
+    if skew:
+        loc[rng.random(n) < 0.9] = M // 2
+    loc = torch.from_numpy(loc).to(dev)
+    before = H.node_bucket.launches
+    order, offsets = H.node_bucket(loc, M)
+    assert H.node_bucket.launches == before + 1
+    want_order, want_offsets = H.node_bucket_reference(loc, M)
+    torch.cuda.synchronize()
+    assert order.dtype == torch.int32 and torch.equal(offsets, want_offsets)
+    key = H._node_keys(loc, M).long()
+
+    def by_key_then_row(o):
+        o = o.long()
+        return torch.sort(key[o] * n + o).values
+
+    assert torch.equal(key[order.long()], key[want_order.long()])
+    assert torch.equal(by_key_then_row(order), by_key_then_row(want_order))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,B,S", [(256, 64, 2), (8, 64, 11), (3000, 32, 2)])
+@pytest.mark.parametrize("fn", ["level_histogram", "level_histogram_sorted"])
+def test_row_kernels_read_uint8_and_int32_codes_alike(fn, M, B, S):
+    from hivemall_tpu_torch.ops import hist as H
+    dev = _card()
+    bins, loc, ws = _hist_operands(21, 60_000, 28, M, B, S)
+    b32 = torch.from_numpy(bins).to(dev)
+    loc, ws = torch.from_numpy(loc).to(dev), torch.from_numpy(ws).to(dev)
+    got32 = getattr(H, fn)(b32, loc, ws, M, B)
+    got8 = getattr(H, fn)(b32.to(torch.uint8), loc, ws, M, B)
+    want = H.level_histogram_reference(b32, loc, ws, M, B)
+    torch.cuda.synchronize()
+    assert torch.equal(got32, want) and torch.equal(got8, want)
+
+
+@pytest.mark.cuda
+def test_sorted_kernel_splits_a_node_of_most_rows():
+    """One node holds 90% of the rows: it spans many slices, each its own
+    block, all flushing into one node's histogram."""
+    from hivemall_tpu_torch.ops import hist as H
+    dev = _card()
+    n, d, M, B, S = 200_000, 28, 64, 64, 2
+    bins, loc, ws = _hist_operands(22, n, d, M, B, S)
+    loc[np.random.default_rng(22).random(n) < 0.9] = 17
+    plan = H._sorted_plan(n, d, M, B, S, H._sms(dev))
+    assert int((loc == 17).sum()) > 20 * plan.rows
+    args = [torch.from_numpy(a).to(dev) for a in (bins, loc, ws)]
+    got = H.level_histogram_sorted(args[0].to(torch.uint8), *args[1:], M, B)
+    assert torch.equal(got, H.level_histogram_reference(*args, M, B))
+
+
+@pytest.mark.cuda
+def test_row_kernels_sort_no_keys_and_copy_no_codes(monkeypatch):
+    """On the card level_histogram_sorted buckets rows with node_bucket (no
+    torch.argsort, sort or cumsum), and neither row kernel makes an int32
+    copy of uint8 codes: the peak memory of both calls stays below half
+    of such a copy."""
+    from hivemall_tpu_torch.ops import hist as H
+    dev = _card()
+    n, d, M, B = 400_000, 28, 256, 64
+    bins, loc, ws = _hist_operands(23, n, d, M, B, 2)
+    bins = torch.from_numpy(bins).to(dev).to(torch.uint8)
+    loc, ws = torch.from_numpy(loc).to(dev), torch.from_numpy(ws).to(dev)
+    fns = (H.level_histogram_sorted, H.level_histogram)
+    for fn in fns:                                  # build and warm up
+        fn(bins, loc, ws, M, B)
+
+    def refuse(*a, **k):
+        raise AssertionError("sorted or scanned on the card")
+
+    for name in ("argsort", "sort", "cumsum"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    s0 = H.node_bucket.launches
+    outs = [fn(bins, loc, ws, M, B) for fn in fns]
+    torch.cuda.synchronize()
+    assert H.node_bucket.launches == s0 + 1
+    assert torch.cuda.max_memory_allocated() - base < 4 * n * d // 2
+    monkeypatch.undo()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
 def test_hist_wrappers_refuse_mixed_devices():
     from hivemall_tpu_torch.ops import hist as H
     dev = _card()
