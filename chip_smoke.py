@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero:
      source, all started together;
   3. each kernel against its plain PyTorch version on the card, timed with
      CUDA events beside its bound and a PyTorch library call: the FFM
-     scatter + AdaGrad kernel at the flagship geometry (F=40, MRF=8192,
-     B=32768); the sharded step's accumulate kernel B2 at the per-rank
+     scatter + AdaGrad kernel B1 at the flagship geometry (F=40,
+     MRF=8192, B=32768), with its row bucketing (``parts_row_bucket``)
+     alone, its peak memory over one call, and its one sum order (the
+     same on a second run; equal bit for bit to the tail entry applied
+     to B2's G); the sharded step's accumulate kernel B2 at the per-rank
      shapes of a 1x1 mesh (Fl=40, Bd=32768) and of dp=2,tp=4 (Fl=10,
      Bd=16384), and its AdaGrad tail entry at the first; the four
      level-histogram kernels at the tree bench's width (1M HIGGS-shaped
@@ -19,7 +22,7 @@ Phases, in order; any failure exits non-zero:
      their trainer (RF: 16 trees, M=256; GBT: M=64); B5 and B6 with
      int32 codes (the kernels line) and the staged uint8 codes
      (``ms_uint8``), B6's bucketing (``node_bucket``) timed alone
-     (``sort_ms``);
+     (``sort_ms``) and held against its plain version;
   4. the port trainers on the card against the same trainers on the CPU
      (the plain versions): FFM from one initial state on a small input;
      one sharded (1x1 mesh) FFM step, in a one-rank NCCL group on the card
@@ -27,7 +30,8 @@ Phases, in order; any failure exits non-zero:
      trees) and GBT on 20k rows;
   5. the main paths, each with every launch count zeroed just before and
      read just after: ``train_ffm`` for one epoch at the flagship width
-     (B=32768, F=40, K=4, dims=2^24) then ``predict``;
+     (B=32768, F=40, K=4, dims=2^24) then ``predict`` (16 launches of
+     B1 and of parts_row_bucket);
      ``train_randomforest_classifier`` (16 trees, depth 8) and
      ``train_xgboost_classifier`` (8 rounds, depth 6) on a StagedMatrix
      of 1M x 28 rows, then predict on 100k held-out rows; the public
@@ -35,10 +39,10 @@ Phases, in order; any failure exits non-zero:
      which no trainer calls, on one level of the fitted forest (staged
      uint8 codes; 3 launches of B5, 1 of B6, 1 of node_bucket); and, in a
      one-rank NCCL group (``init_distributed``), ``train_ffm ... -mesh
-     dp=1,tp=1`` on the same 16 batches (B2 and the tail once a step, B1
-     never; held-out logloss and AUC within 1e-3 of the single-device
-     epoch) and ``train_randomforest_classifier ... -mesh dp=1`` (the
-     same forest bit for bit, 9 launches of B3).
+     dp=1,tp=1`` on the same 16 batches (B2, the tail and the bucketing
+     once a step, B1 never; held-out logloss and AUC within 1e-3 of the
+     single-device epoch) and ``train_randomforest_classifier ... -mesh
+     dp=1`` (the same forest bit for bit, 9 launches of B3).
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Writes the full report to
@@ -46,8 +50,8 @@ Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 beside it, it exits non-zero and prints no result. ``--profile`` adds, after
 the FFM main path, the host stages of four more steps and a torch.profiler
 table of two, a torch.profiler table of one RF fit and one GBT fit, and
-tables of B5 and B6 calls at phase 3's shapes, to the output and the
-report.
+tables of B1, its bucketing, B2 (both shapes), B5 and B6 calls at phase
+3's shapes, to the output and the report.
 """
 from __future__ import annotations
 
@@ -131,8 +135,8 @@ from hivemall_tpu_torch.ops.fm_parts import (  # noqa: E402
 from hivemall_tpu_torch.ops.losses import get_loss  # noqa: E402
 from hivemall_tpu_torch.ops.parts_scatter import (  # noqa: E402
     _accumulate_reference, _adagrad_tail_reference, parts_adagrad_tail,
-    parts_scatter_accum, parts_scatter_adagrad,
-    parts_scatter_adagrad_reference)
+    parts_row_bucket, parts_row_bucket_reference, parts_scatter_accum,
+    parts_scatter_adagrad, parts_scatter_adagrad_reference)
 from hivemall_tpu_torch.ops.schedules import make_eta  # noqa: E402
 from hivemall_tpu_torch.parallel.mesh import (  # noqa: E402
     init_distributed, make_mesh)
@@ -198,7 +202,8 @@ def phase_build() -> None:
 
 FFM_WRAPPERS = {"parts_scatter_adagrad": parts_scatter_adagrad,
                 "parts_scatter_accum": parts_scatter_accum,
-                "parts_adagrad_tail": parts_adagrad_tail}
+                "parts_adagrad_tail": parts_adagrad_tail,
+                "parts_row_bucket": parts_row_bucket}
 
 
 # node_bucket: B6's bucketing, launched by level_histogram_sorted
@@ -249,7 +254,32 @@ def _scatter_operands(rng, lam_on: bool):
     return rows, gpack, T2, S2
 
 
-def phase_kernel_vs_plain() -> dict:
+def _bucket_vs_plain(rows: torch.Tensor, Fl: int) -> dict:
+    """parts_row_bucket against its plain version (bit for bit), timed
+    beside its bound (rows in; order and offsets out) and one stable
+    ``torch.sort`` of the same keys (the order alone)."""
+    order, offsets = parts_row_bucket(rows, MRF)
+    want = parts_row_bucket_reference(rows, MRF)
+    torch.cuda.synchronize()
+    _check(torch.equal(order, want[0]) and torch.equal(offsets, want[1]),
+           f"parts_row_bucket differs from its plain version (Fl={Fl})")
+    key = (rows.long() + torch.arange(Fl, device=DEV)[:, None]
+           * MRF).reshape(-1)
+    t = _time_kernel(lambda: parts_row_bucket(rows, MRF),
+                     lambda: parts_row_bucket_reference(rows, MRF),
+                     lambda: torch.sort(key, stable=True),
+                     _nbytes(rows, order, offsets), rows.numel())
+    return dict(t, max_abs_err=0.0, equal_to_plain=True)
+
+
+def phase_kernel_vs_plain(profile: bool = False) -> dict:
+    """B1 at the flagship geometry against its plain version (S2 within
+    1e-4, T2 within one bf16 ulp on 1e-3 of cells, rows with no slot
+    untouched), run to run bit for bit, and bit for bit equal to
+    parts_adagrad_tail(parts_scatter_accum(...)); timed beside its bound,
+    the plain version and the accumulate alone as ``index_add_`` (no
+    zeroing, no tail: no single PyTorch call does B1's work); its peak
+    memory over one call; and the bucketing against its plain version."""
     rng = np.random.default_rng(1234)
     out = {}
     for lam_on in (False, True):
@@ -264,7 +294,7 @@ def phase_kernel_vs_plain() -> dict:
                                         live8, **kw)
         torch.cuda.synchronize()
         # S2: the kernel and index_add_ add each row's f32 contributions
-        # in different (atomic) orders. A Zipf-head row takes thousands of
+        # in different orders. A Zipf-head row takes thousands of
         # random-sign terms, whose reordering error can reach n*eps of
         # the sum of magnitudes; 1e-4 leaves room above the 1e-5 seen on
         # an H100
@@ -274,6 +304,7 @@ def phase_kernel_vs_plain() -> dict:
         t_frac = float((ulps > 0).float().mean())
         max_abs = max(float((Sk - Sp).abs().max()),
                       float((Tk.float() - Tp.float()).abs().max()))
+        del Tp, Sp
         touched = torch.zeros(F * MRF, dtype=torch.bool, device=DEV)
         touched[(rows.long() + torch.arange(F, device=DEV)[:, None]
                  * MRF).reshape(-1)] = True
@@ -284,10 +315,26 @@ def phase_kernel_vs_plain() -> dict:
         _check(t_max_ulp <= 1 and t_frac <= 1e-3,
                f"T2 off by {t_max_ulp} ulp on {t_frac:.2e} of cells")
         _check(cold_same, "rows with no gradient changed")
+        # one sum order: the same on a second run, and B1 = tail(B2)
+        Tr, Sr = T2.clone(), S2.clone()
+        parts_scatter_adagrad(rows, gpack, Tr, Sr, eta, lam8, live8, **kw)
+        torch.cuda.synchronize()
+        rerun_same = bool(torch.equal(Tk, Tr) and torch.equal(Sk, Sr))
+        _check(rerun_same, f"B1 differs between two runs (lam_on={lam_on})")
+        Tr.copy_(T2)
+        Sr.copy_(S2)
+        parts_adagrad_tail(parts_scatter_accum(rows, gpack, F=F, MRF=MRF),
+                           Tr, Sr, eta, lam8, live8, FK=FK, lam_on=lam_on)
+        torch.cuda.synchronize()
+        split_same = bool(torch.equal(Tk, Tr) and torch.equal(Sk, Sr))
+        _check(split_same, "B1 differs from parts_adagrad_tail(B2) "
+                           f"(lam_on={lam_on})")
+        del Tr, Sr
         tag = "l2" if lam_on else "no_l2"
         _say(f"kernel_{tag}", s2_max_rel_err=s_rel, t2_max_ulp=t_max_ulp,
              t2_ulp_frac=t_frac, max_abs_err=max_abs,
              untouched_rows_bit_identical=cold_same,
+             rerun_bit_equal=rerun_same, equal_to_tail_of_accum=split_same,
              distinct_rows=int(touched.sum()), slots=F * B)
         out[tag] = dict(max_abs_err=max_abs)
         if not lam_on:
@@ -295,13 +342,23 @@ def phase_kernel_vs_plain() -> dict:
         # timing at the main path's shapes (with L2: the trainer's default)
         ms = _time_ms(lambda: parts_scatter_adagrad(
             rows, gpack, Tk, Sk, eta, lam8, live8, **kw))
+        Tp, Sp = T2.clone(), S2.clone()
         plain_ms = _time_ms(lambda: parts_scatter_adagrad_reference(
             rows, gpack, Tp, Sp, eta, lam8, live8, **kw))
+        del Tp, Sp
         glob = (rows.long() + torch.arange(F, device=DEV)[:, None]
                 * MRF).reshape(-1)
         g32 = gpack.float().view(-1, 256)
         G = torch.zeros((F * MRF, 256), dtype=torch.float32, device=DEV)
-        library_ms = _time_ms(lambda: G.index_add_(0, glob, g32))
+        accum_only_ms = _time_ms(lambda: G.index_add_(0, glob, g32))
+        del G, g32
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        parts_scatter_adagrad(rows, gpack, Tk, Sk, eta, lam8, live8, **kw)
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
         # bound: each input read once, each output written once. A row
         # with no gradient comes out unchanged, so the function needs to
         # read and write T2/S2 only on the distinct rows this data touches
@@ -310,17 +367,22 @@ def phase_kernel_vs_plain() -> dict:
                   + 2 * cells * (2 + 4)
                   + lam8.numel() * 4 + live8.numel() * 4)
         nops = gpack.numel() + 10 * cells
-        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops_ms = nops / F32_OPS_PER_S * 1e3
-        bound_ms = max(bound_bytes_ms, bound_ops_ms)
-        _say("kernel_time", ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-             bound_ms=bound_ms, bytes=nbytes, ops=nops,
-             bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-             else "operations")
-        out.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms,
-                   bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-                   else "operations")
+        bound_ms, bound_by = _bound(nbytes, nops)
+        _say("kernel_time", ms=ms, plain_ms=plain_ms, library_ms=None,
+             accumulate_only_index_add_ms=accum_only_ms, bound_ms=bound_ms,
+             bytes=nbytes, ops=nops, bound_by=bound_by,
+             call_peak_mib=peak_mib)
+        out.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_by=bound_by)
+        b = out["bucket"] = _bucket_vs_plain(rows, F)
+        _say("row_bucket", sort_ms=b["ms"],
+             **{k_: v for k_, v in b.items() if k_ != "ms"})
+        if profile:
+            _profile_call("parts_scatter_adagrad", lambda: (
+                parts_scatter_adagrad(rows, gpack, Tk, Sk, eta, lam8, live8,
+                                      **kw)))
+            _profile_call("parts_row_bucket",
+                          lambda: parts_row_bucket(rows, MRF))
     return out
 
 
@@ -346,10 +408,11 @@ def _accum_operands(Fl: int, n: int, exact: bool, seed: int):
     return rows, g.to(torch.bfloat16)
 
 
-def phase_accum_vs_plain() -> dict:
+def phase_accum_vs_plain(profile: bool = False) -> dict:
     """B2 (parts_scatter_accum) at the two per-rank shapes: bit-equal to
     its plain version on exactly summable gradients, and within TOL_EPS
-    eps x sum|g| of a float64 sum per cell on N(0, 0.01) ones; timed
+    eps x sum|g| of a float64 sum per cell on N(0, 0.01) ones, the same
+    bit for bit on a second run; timed
     beside its bound (gradient and rows in, the whole G written),
     ``index_add_`` into a zeroed G and the plain version. Then the tail
     entry (parts_adagrad_tail) at the first shape, bit-equal to its plain
@@ -366,6 +429,9 @@ def phase_accum_vs_plain() -> dict:
                 * MRF).reshape(-1)
         gr = _accum_operands(Fl, n, False, 77 + Fl)[1]
         got_r = parts_scatter_accum(rows, gr, F=Fl, MRF=MRF)
+        rerun_same = torch.equal(got_r,
+                                 parts_scatter_accum(rows, gr, F=Fl, MRF=MRF))
+        _check(rerun_same, f"B2 differs between two runs ({tag})")
         g64 = gr.double().view(-1, 256)
         want64 = torch.zeros((Fl * MRF, 256), dtype=torch.float64,
                              device=DEV).index_add_(0, glob, g64)
@@ -390,7 +456,11 @@ def phase_accum_vs_plain() -> dict:
                          lambda: _accumulate_reference(rows, g, Fl, MRF),
                          library, nbytes, g.numel())
         _say(f"accum_{tag}", Fl=Fl, Bd=n, exact_equal=True,
-             err_over_eps_sum_abs=ratio, max_abs_err=max_abs, **t)
+             rerun_bit_equal=rerun_same, err_over_eps_sum_abs=ratio,
+             max_abs_err=max_abs, **t)
+        if profile:
+            _profile_call(f"parts_scatter_accum_{tag}",
+                          lambda: parts_scatter_accum(rows, g, F=Fl, MRF=MRF))
         out[tag] = dict(t, max_abs_err=max_abs)
         if tag == "dp1_tp1":
             out["tail"] = _tail_vs_plain(want, rows, Fl)
@@ -515,6 +585,25 @@ def _time_kernel(fn, plain, lib, nbytes, nops) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, ops=nops)
 
 
+def _node_bucket_vs_plain(loc: torch.Tensor, M: int, ms: float) -> dict:
+    """node_bucket (B6's counting sort; its order inside a node is unset):
+    offsets equal to the plain version's, order sorted by node; beside its
+    bound (loc in, order and offsets out), the plain version and one stable
+    ``torch.sort`` of the keys (the order alone)."""
+    order, offsets = H.node_bucket(loc, M)
+    want = H.node_bucket_reference(loc, M)
+    key = H._node_keys(loc, M)
+    torch.cuda.synchronize()
+    _check(torch.equal(offsets, want[1])
+           and bool((torch.diff(key[order.long()]) >= 0).all()),
+           f"node_bucket differs from its plain version at M={M}")
+    bound_ms, bound_by = _bound(_nbytes(loc, order, offsets), loc.numel())
+    return dict(ms=ms, plain_ms=_time_ms(
+        lambda: H.node_bucket_reference(loc, M), n=5, warm=1),
+        library_ms=_time_ms(lambda: torch.sort(key, stable=True)),
+        bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+
+
 def phase_tree_kernels_vs_plain(bins: torch.Tensor, y: np.ndarray,
                                 profile: bool = False) -> dict:
     """Every histogram kernel at the tree main paths' shapes: 1M rows,
@@ -624,6 +713,7 @@ def phase_tree_kernels_vs_plain(bins: torch.Tensor, y: np.ndarray,
                                                      TREE_BINS))
             if name == "hist_sorted":
                 t["sort_ms"] = _time_ms(lambda: H.node_bucket(loc, M))
+                t["bucket"] = _node_bucket_vs_plain(loc, M, t["sort_ms"])
             _say(f"{name}_M{M}", max_abs_err=max(errs[-4:]),
                  s11_err_over_eps_sum_abs=max(ratios), **t)
             if profile:
@@ -831,15 +921,17 @@ def phase_main_path(profile: bool) -> dict:
     t.fit(train)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = parts_scatter_adagrad.launches
-    _check(all(v == 0 for k, v in _counts().items()
-               if k != "parts_scatter_adagrad"),
-           f"train_ffm launched other kernels: {_counts()}")
+    counts = _counts()
+    launches = counts["parts_scatter_adagrad"]
+    _check(all(v == 0 for k, v in counts.items()
+               if k not in ("parts_scatter_adagrad", "parts_row_bucket")),
+           f"train_ffm launched other kernels: {counts}")
     steps = t._t
     eps = (t._examples - B) / (t_end - marks[0])
     train_ll = t.cumulative_loss
     _check(steps == TRAIN_BATCHES, f"{steps} steps, want {TRAIN_BATCHES}")
-    _check(launches == steps, f"kernel launches {launches} != steps {steps}")
+    _check(launches == steps and counts["parts_row_bucket"] == steps,
+           f"kernel launches {counts} != steps {steps}")
     for name, x in (("T2", t.params["T2"]), ("S2", t.opt_state["T2"]["gg"])):
         _check(x.device.type == "cuda", f"{name} on {x.device}")
     _check(np.isfinite(train_ll), "training loss not finite")
@@ -851,13 +943,15 @@ def phase_main_path(profile: bool) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     dev_ms = _device_ms_per_step(t, train, "main_path")
     _say("main_path", steps=steps, launches=launches,
-         examples_per_sec=eps, train_logloss=train_ll, holdout_logloss=ll,
-         holdout_auc=auc, peak_mem_gib=peak, device_ms_per_step=dev_ms)
+         launches_bucket=counts["parts_row_bucket"], examples_per_sec=eps,
+         train_logloss=train_ll, holdout_logloss=ll, holdout_auc=auc,
+         peak_mem_gib=peak, device_ms_per_step=dev_ms)
     _check(auc > 0.6, f"held-out AUC {auc} <= 0.6")
     if profile:
         _profile_steps(t, train)
-    return dict(launches=launches, train=train, hold=hold, ll=ll, auc=auc,
-                eps=eps, device_ms=dev_ms)
+    return dict(launches=launches, bucket=counts["parts_row_bucket"],
+                train=train, hold=hold, ll=ll, auc=auc, eps=eps,
+                device_ms=dev_ms)
 
 
 # --- phase 4 (trees): the trainers on the card against the CPU ------------
@@ -1010,11 +1104,11 @@ def phase_mesh_main_paths(base: dict, Xs, y, forest) -> dict:
         steps = t._t
         eps = (t._examples - B) / (t_end - marks[0])
         _check(steps == TRAIN_BATCHES, f"mesh: {steps} steps")
-        _check(counts["parts_scatter_accum"] == steps
-               and counts["parts_adagrad_tail"] == steps
+        mesh_kernels = ("parts_scatter_accum", "parts_adagrad_tail",
+                        "parts_row_bucket")
+        _check(all(counts[k] == steps for k in mesh_kernels)
                and all(v == 0 for k, v in counts.items()
-                       if k not in ("parts_scatter_accum",
-                                    "parts_adagrad_tail")),
+                       if k not in mesh_kernels),
                f"mesh train_ffm launches {counts}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         p = t.predict(base["hold"])
@@ -1027,6 +1121,7 @@ def phase_mesh_main_paths(base: dict, Xs, y, forest) -> dict:
              launches_accum=counts["parts_scatter_accum"],
              launches_tail=counts["parts_adagrad_tail"],
              launches_fused=counts["parts_scatter_adagrad"],
+             launches_bucket=counts["parts_row_bucket"],
              examples_per_sec=eps, holdout_logloss=ll, holdout_auc=auc,
              logloss_diff=ll - base["ll"], auc_diff=auc - base["auc"],
              peak_mem_gib=peak, device_ms_per_step=dev_ms,
@@ -1037,6 +1132,8 @@ def phase_mesh_main_paths(base: dict, Xs, y, forest) -> dict:
                f"mesh epoch logloss/AUC {ll}/{auc} vs single device "
                f"{base['ll']}/{base['auc']}")
         out["parts_scatter_accum"] = counts["parts_scatter_accum"]
+        out["parts_adagrad_tail"] = counts["parts_adagrad_tail"]
+        out["parts_row_bucket_mesh"] = counts["parts_row_bucket"]
         del t
 
         cls = lookup("train_randomforest_classifier").resolve()
@@ -1160,7 +1257,7 @@ def main() -> None:
     profile = "--profile" in sys.argv[1:]
     smi = phase_identity()
     phase_build()
-    k = phase_kernel_vs_plain()
+    k = phase_kernel_vs_plain(profile)
     rng = np.random.default_rng(1437)
     t0 = time.perf_counter()
     X, y = _higgs_like(rng, TREE_N)
@@ -1170,7 +1267,7 @@ def main() -> None:
          seconds=round(time.perf_counter() - t0, 3),
          positive_rate=float(y.mean()))
     kt = phase_tree_kernels_vs_plain(Xs.bins, y, profile)
-    ka = phase_accum_vs_plain()
+    ka = phase_accum_vs_plain(profile)
     phase_small_reference()
     phase_mesh_step_card_vs_cpu()
     phase_tree_small_reference(X, y, Xh)
@@ -1181,33 +1278,32 @@ def main() -> None:
     launches.update(hist_dense_int=tm["hist_dense_int"],
                     hist_dense_f32=tm["hist_dense_f32"],
                     hist_flat=api["hist_flat"],
-                    hist_sorted=api["hist_sorted"])
+                    hist_sorted=api["hist_sorted"],
+                    node_bucket=api["node_bucket"],
+                    parts_row_bucket=base["bucket"])
     launches.update(phase_mesh_main_paths(base, Xs, y, tm["forest"]))
-    kernels = [{
-        "name": "parts_scatter_adagrad", "route": "cuda",
-        "source": "hivemall_tpu_torch/kernels/parts_scatter_adagrad.cu",
-        "replaces": REPLACES, "launches": launches["parts_scatter_adagrad"],
-        "max_abs_err": max(k["l2"]["max_abs_err"], k["no_l2"]["max_abs_err"]),
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": k["library_ms"]}]
+    src = "hivemall_tpu_torch/kernels/parts_scatter_adagrad.cu"
+
+    def row(name, source, replaces, r, max_abs_err):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": max_abs_err, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
     a = ka["dp1_tp1"]                  # the shape the 1x1 mesh path runs
-    kernels.append({
-        "name": "parts_scatter_accum", "route": "cuda",
-        "source": "hivemall_tpu_torch/kernels/parts_scatter_adagrad.cu",
-        "replaces": ACCUM_REPLACES,
-        "launches": launches["parts_scatter_accum"],
-        "max_abs_err": max(v["max_abs_err"] for k_, v in ka.items()
-                           if k_ != "tail"),
-        "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
-        "bound_by": a["bound_by"], "library_ms": a["library_ms"]})
+    kernels = [
+        row("parts_scatter_adagrad", src, REPLACES, k,
+            max(k["l2"]["max_abs_err"], k["no_l2"]["max_abs_err"])),
+        row("parts_row_bucket", src, REPLACES, k["bucket"], 0.0),
+        row("parts_scatter_accum", src, ACCUM_REPLACES, a,
+            max(v["max_abs_err"] for k_, v in ka.items() if k_ != "tail")),
+        row("parts_adagrad_tail", src, ACCUM_REPLACES, ka["tail"], 0.0)]
     for name, replaces in HIST_REPLACES.items():
-        r = kt[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SRC_HIST,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        kernels.append(row(name, SRC_HIST, replaces, kt[name],
+                           kt[name]["max_abs_err"]))
+    kernels.append(row("node_bucket", SRC_HIST, HIST_REPLACES["hist_sorted"],
+                       kt["hist_sorted"]["bucket"], 0.0))
     REPORT["kernels"] = kernels
     REPORT["nvidia_smi"] = smi
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -467,3 +467,150 @@ def test_mesh_trainer_in_a_one_rank_nccl_group():
     finally:
         dist.destroy_process_group()
     assert np.abs(p - one.predict(ds)).max() < 1e-3
+
+
+# --- B1/B2 as one stable row-sorted reduction --------------------------------
+
+def _real_operands(seed, Fs=F, n=N, mrf=MRF, exact=False, one_row=False):
+    """Zipf-skewed rows (some past MRF: dropped) or every slot in one row;
+    N(0, 0.01) gradients (sums not exact in float32) or the 1/256 grid, the
+    count lane set as the step sets it; bf16 table, positive S2."""
+    rng = np.random.default_rng(seed)
+    if one_row:
+        rows = np.full((Fs, n), mrf // 3, np.int32)
+    else:
+        rows = np.minimum(rng.zipf(1.2, (Fs, n)) - 1, mrf - 1).astype(
+            np.int32)
+    if exact:
+        g = rng.integers(-64, 65, (Fs, n, 2, 128)) / 256.0
+    else:
+        g = rng.normal(0.0, 0.01, (Fs, n, 2, 128))
+    g = g.astype(np.float32)
+    g[:, :, 1, FK + 2 - 128:] = 0.0
+    g[:, :, 1, FK + 2 - 128] = 1.0
+    T2 = np.zeros((Fs * mrf, 256), np.float32)
+    T2[:, :FK + 1] = rng.normal(0.0, 0.1, (Fs * mrf, FK + 1))
+    S2 = rng.uniform(0.0, 1e-3, (Fs * mrf * 2, 128)).astype(np.float32)
+    return (torch.from_numpy(rows), torch.from_numpy(g).to(torch.bfloat16),
+            torch.from_numpy(T2).to(torch.bfloat16).view(-1, 128),
+            torch.from_numpy(S2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Fs,mrf,n,case", [
+    (F, MRF, N, "zipf"), (F, MRF, N, "out_of_range"), (3, 65536, 5000, "zipf"),
+    (4, 1024, 9000, "one_row"), (40, 8192, 32768, "zipf"),
+    (2, 1024, 2 * 1024, "zipf")],
+    ids=["zipf", "out_of_range", "global_counts_mrf65536", "one_row",
+         "flagship", "m2_slot_blocks"])
+def test_row_bucket_matches_plain_version(Fs, mrf, n, case):
+    from hivemall_tpu_torch.ops.parts_scatter import (
+        parts_row_bucket, parts_row_bucket_reference)
+    dev = _card()
+    rows = _real_operands(1, Fs, n, mrf, one_row=case == "one_row")[0]
+    if case == "out_of_range":
+        rows[0, ::5] = mrf + 7
+        rows[3, 1::9] = -1
+    rows = rows.to(dev)
+    before = parts_row_bucket.launches
+    order, offsets = parts_row_bucket(rows, mrf)
+    assert parts_row_bucket.launches == before + 1
+    want = parts_row_bucket_reference(rows, mrf)
+    torch.cuda.synchronize()
+    assert torch.equal(offsets, want[1])
+    assert torch.equal(order, want[0])
+
+
+def _b1(rows, g, T2, S2, lam_on, Fs, mrf, patterns=None):
+    from hivemall_tpu_torch.ops.parts_scatter import parts_scatter_adagrad
+    lam8, live8 = patterns or parts_lane_patterns(F, K, 0.02, 0.01,
+                                                  rows.device)
+    Tk, Sk = T2.clone(), S2.clone()
+    parts_scatter_adagrad(rows, g, Tk, Sk, 0.1, lam8, live8, F=Fs, MRF=mrf,
+                          FK=FK, lam_on=lam_on)
+    return Tk, Sk
+
+
+def _tail_of_b2(rows, g, T2, S2, lam_on, Fs, mrf):
+    from hivemall_tpu_torch.ops.parts_scatter import (parts_adagrad_tail,
+                                                      parts_scatter_accum)
+    lam8, live8 = parts_lane_patterns(F, K, 0.02, 0.01, rows.device)
+    Tk, Sk = T2.clone(), S2.clone()
+    G = parts_scatter_accum(rows, g, F=Fs, MRF=mrf)
+    parts_adagrad_tail(G, Tk, Sk, 0.1, lam8, live8, FK=FK, lam_on=lam_on)
+    return Tk, Sk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lam_on", [False, True], ids=["no_l2", "l2"])
+@pytest.mark.parametrize("one_row", [False, True], ids=["zipf", "one_row"])
+def test_fused_step_equals_tail_of_accum_bit_for_bit(lam_on, one_row):
+    """B1 = parts_adagrad_tail(B2) on N(0, 0.01) gradients: one sum order
+    (a stable bucketing, fixed tiles) and one rounding serve both."""
+    dev = _card()
+    ops = [t.to(dev) for t in _real_operands(2, n=4 * N, one_row=one_row)]
+    fused = _b1(*ops, lam_on, F, MRF)
+    split = _tail_of_b2(*ops, lam_on, F, MRF)
+    torch.cuda.synchronize()
+    assert torch.equal(fused[0], split[0]) and torch.equal(fused[1],
+                                                           split[1])
+    assert not torch.equal(fused[0], ops[2])
+
+
+@pytest.mark.cuda
+def test_b1_and_b2_are_the_same_on_every_run():
+    from hivemall_tpu_torch.ops.parts_scatter import parts_scatter_accum
+    dev = _card()
+    ops = [t.to(dev) for t in _real_operands(3, n=4 * N)]
+    a, b = _b1(*ops, True, F, MRF), _b1(*ops, True, F, MRF)
+    Ga = parts_scatter_accum(ops[0], ops[1], F=F, MRF=MRF)
+    Gb = parts_scatter_accum(ops[0], ops[1], F=F, MRF=MRF)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(Ga, Gb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["m2_slot_blocks", "one_row", "mrf65536"])
+def test_b1_and_b2_exact_on_exact_sums(case):
+    """m = 2 slot blocks (n = 2*B), one row holding every slot (spread over
+    many tiles), and the global-counter bucketing: bit-equal to the plain
+    versions where every float32 sum is exact."""
+    from hivemall_tpu_torch.ops.parts_scatter import (
+        _accumulate_reference, parts_scatter_accum,
+        parts_scatter_adagrad_reference)
+    dev = _card()
+    Fs, mrf, n = {"m2_slot_blocks": (F, MRF, 2 * N),
+                  "one_row": (F, MRF, 3000),
+                  "mrf65536": (2, 65536, 3000)}[case]
+    rows, g, T2, S2 = (t.to(dev) for t in _real_operands(
+        4, Fs, n, mrf, exact=True, one_row=case == "one_row"))
+    G = parts_scatter_accum(rows, g, F=Fs, MRF=mrf)
+    want = _accumulate_reference(rows, g, Fs, mrf)
+    torch.cuda.synchronize()
+    assert torch.equal(G, want)
+    Tk, Sk = _b1(rows, g, T2, S2, True, Fs, mrf)
+    lam8, live8 = parts_lane_patterns(F, K, 0.02, 0.01, dev)
+    Tp, Sp = T2.clone(), S2.clone()
+    parts_scatter_adagrad_reference(rows, g, Tp, Sp, 0.1, lam8, live8,
+                                    F=Fs, MRF=mrf, FK=FK, lam_on=True)
+    torch.cuda.synchronize()
+    assert torch.equal(Sk, Sp) and torch.equal(Tk, Tp)
+
+
+@pytest.mark.cuda
+def test_b1_and_b2_make_no_host_sync():
+    from hivemall_tpu_torch.ops.parts_scatter import parts_scatter_accum
+    dev = _card()
+    ops = [t.to(dev) for t in _real_operands(5)]
+    pats = parts_lane_patterns(F, K, 0.02, 0.01, dev)
+    _b1(*ops, True, F, MRF, pats)                  # build and load first
+    parts_scatter_accum(ops[0], ops[1], F=F, MRF=MRF)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _b1(*ops, True, F, MRF, pats)
+        parts_scatter_accum(ops[0], ops[1], F=F, MRF=MRF)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
